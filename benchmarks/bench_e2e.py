@@ -1,9 +1,9 @@
 """Reproducible end-to-end benchmark: simulate a workload, run the
 fused pipeline, report wall time per phase + concordance.
 
-Examples (numbers in README were produced with these):
+Examples:
 
-    # 1Mb / 22 samples / 25x (TPU: set PANGENIE_TPU_DTYPE=float32)
+    # 1Mb / 22 samples / 25x (f32 on an accelerator by default)
     python benchmarks/bench_e2e.py --length 1000000 --samples 22
 
     # 4Mb / 60 samples (auto haplotype-sampling kicks in at >100 paths)

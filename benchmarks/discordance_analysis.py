@@ -1,6 +1,6 @@
 """Classify discordant calls of a genotyping run against its truth set.
 
-VERDICT r03 weak #4: the genome-scale bench reported 99.5-99.7%
+The genome-scale bench reported 99.5-99.7%
 concordance with no breakdown of the residual. This tool attributes
 every discordant site to a class so the residual is explainable:
 

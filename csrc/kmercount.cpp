@@ -1,7 +1,7 @@
 // Native k-mer engine: canonical 2-bit k-mer extraction + counting.
 //
 // Host-side replacement for the Jellyfish boundary of the reference
-// (src/jellyfishcounter.cpp): the TPU framework keeps count tables as
+// (src/jellyfishcounter.cpp): the JAX framework keeps count tables as
 // sorted (key, count) arrays (device-friendly layout); this module
 // provides the CPU hot loops around that layout:
 //

@@ -1,40 +1,35 @@
-"""pangenie_tpu: a TPU-native pangenome genotyper.
+"""pangenie_tpu: a JAX pangenome genotyper for one or more GPUs.
 
 A from-scratch JAX/XLA/Pallas re-design of the PanGenie short-read
 genotyper (pangenome-based k-mer genotyping with a Li-Stephens pair HMM).
 
 Layer map (mirrors capabilities of the reference C++ implementation,
-re-architected for TPU):
+re-architected for an accelerator):
 
 - ``io``      : FASTA / VCF parsing and index serialization (host side)
 - ``panel``   : pangenome graph construction (bubble clustering / allele
                 merging), VCF output writers
 - ``kmers``   : canonical k-mer counting (sorted-table engine with a
-                numpy host path and a JAX/TPU device path), histogram /
+                numpy/C++ host path and a JAX device path), histogram /
                 coverage estimation, unique-kmer selection
 - ``model``   : copy-number probability model (geometric + Poisson with
                 regularization), emission factorization
 - ``hmm``     : batched forward/backward + Viterbi pair-HMM scans and the
                 integer min-plus haplotype-sampling DP
 - ``parallel``: device meshes, sharding of (chromosome-batch, path-subset)
-                work over TPU slices
+                work over the local devices
 - ``cli``     : `pangenie-tpu index|genotype|vcf|sample` entry points
 """
 
 __version__ = "0.1.0"
 
-import os as _os
-
 import jax as _jax
 
 # The reference-parity genotyping path accumulates per-column
-# likelihoods spanning ~1e-60 .. 1 — the HMM scans run in float64
-# (TPU executes f64 via software emulation; the performance path uses
-# rescaled f32/bf16 kernels selected explicitly).
+# likelihoods spanning ~1e-60 .. 1 in float64; the accelerator path
+# selects float32 explicitly (backend.hmm_dtype).
 _jax.config.update("jax_enable_x64", True)
 
-if _os.environ.get("PANGENIE_TPU_PLATFORM"):
-    # Select the JAX platform explicitly (e.g. "cpu" for tests/CI,
-    # "tpu" in production). Done via jax.config because site hooks may
-    # override the JAX_PLATFORMS env var at interpreter start.
-    _jax.config.update("jax_platforms", _os.environ["PANGENIE_TPU_PLATFORM"])
+from . import backend as _backend  # noqa: E402
+
+_backend.configure()

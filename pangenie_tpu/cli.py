@@ -69,7 +69,7 @@ def main(argv=None) -> int:
         prog="pangenie-tpu",
         description=(
             "PanGenie-TPU — genotyping based on kmer-counting and known "
-            "haplotype sequences, re-designed for TPU (JAX)."
+            "haplotype sequences, re-designed for GPUs (JAX)."
         ),
     )
     parser.add_argument("--version", action="version", version=VERSION)

@@ -2,130 +2,65 @@
 
 Single entry point for running a [B, N, ...] batch of independent
 forward-backward problems on one device; the production genotyping
-path, the bench, and the sharded multi-chip step all go through here so
-backend-specific fast paths (the fused Pallas TPU kernel) stay in one
-place with the portable XLA scan as fallback.
+path, the bench, and the sharded multi-device step all go through here
+so the GPU kernel (hmm/pallas_fb.py) and the portable XLA scan are
+chosen in one place.
 """
 
 from __future__ import annotations
 
-import os
-
-import jax
 import jax.numpy as jnp
 
+from .. import backend
 from .forward_backward import ColumnArrays, forward_backward
 
-# the fused kernel stores the forward pass in HBM: [N, P, P, B] f32.
-# Default budget: 10 GB of the v5e's 16 GB — genome-scale chromosome
-# buckets (65536 columns x 256 pair-states x 128 lanes) measured 0.07 s
-# fused vs ~15 s as an XLA scan, so the kernel must not fall off at
-# exactly the shapes that matter. When the backend reports live memory
-# stats the cap derives from FREE HBM instead (other residents — primed
-# count tables, device columns, staging buffers — shrink the real
-# headroom; ADVICE r03).
-_PALLAS_HBM_CAP = 10 * 1024 ** 3
-# and stages [S=8, P, P, 128] blocks (double-buffered) in VMEM
-_PALLAS_MAX_PATHS = 96
-_PALLAS_MAX_ALLELES = 8  # A^2 unrolled FMA terms per column
+# The kernel keeps each program's [PP, PP] f32 state tensors (PP = P
+# rounded up to a power of two) in registers, spread over at most 16
+# warps (512 threads): at PP = 128 that is 32 registers a thread per
+# tensor, and a step keeps a handful of such tensors live, within the
+# 255 registers a thread may have. PP = 256 would need 128 per tensor.
+# On an H100, P = 128 compiles and runs 3.7x faster than the XLA scan.
+KERNEL_MAX_PATHS = 128
+# the backward kernel's in-kernel collapse makes one [PP, PP] reduction
+# per allele and column. On an H100 (B=16, N=2048, P=32) the kernel ran
+# 6.0x the scan at A=16, 3.3x at A=32 and 1.3x at A=64 (with a 9 s
+# compile); wider bubbles go to the scan
+KERNEL_MAX_ALLELES = 32
+# share of the free device memory the kernel's buffers may take
+_MEMORY_SHARE = 0.8
 
 
-def _is_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except RuntimeError:
-        return False
+def _kernel_bytes(B: int, N: int, P: int, A: int) -> int:
+    """Device bytes of the kernel's intermediates: the forward pass's
+    alphas [B, N, PP, PP] plus the inputs it restages."""
+    from .pallas_fb import _pow2
+
+    PP = _pow2(P)
+    return 4 * B * N * (PP * PP + PP + A * A + 8)
 
 
-def _hbm_budget() -> int:
-    try:
-        stats = jax.devices()[0].memory_stats()
-        free = int(stats["bytes_limit"]) - int(stats["bytes_in_use"])
-        return max(2 * 1024 ** 3, int(free * 0.8))
-    except Exception:
-        return _PALLAS_HBM_CAP
-
-
-def _common_eligible(columns: ColumnArrays, n_state_tensors: int) -> bool:
-    if os.environ.get("PANGENIE_TPU_NO_PALLAS"):
-        return False
+def use_kernel(columns: ColumnArrays) -> bool:
+    """True when the Triton forward-backward kernel handles this batch:
+    float32 columns on an accelerator, P and A within the kernel's
+    caps, and its buffers within the free device memory."""
     if columns.lp.dtype != jnp.float32:
         return False
     B, N, P = columns.alleles.shape
-    if N == 0 or P > _PALLAS_MAX_PATHS:
-        return False
-    lb = (max(B, 1) + 127) // 128 * 128
-    if n_state_tensors * N * P * P * lb * 4 > _hbm_budget():
-        return False
-    try:
-        platform = jax.devices()[0].platform
-    except RuntimeError:
-        return False
-    return platform == "tpu"
-
-
-def use_pallas(columns: ColumnArrays) -> bool:
-    """True when the fused in-kernel-emission TPU kernel handles this
-    batch (requires the batch-wide allele count to be small: A^2
-    unrolled FMA terms per column)."""
     A = columns.incidence.shape[3]
-    if A > _PALLAS_MAX_ALLELES:
+    if N == 0 or P > KERNEL_MAX_PATHS or A > KERNEL_MAX_ALLELES:
         return False
-    return _common_eligible(columns, n_state_tensors=1)
-
-
-def use_pallas_generic(columns: ColumnArrays) -> bool:
-    """True when the any-A generic kernel handles this batch: emissions
-    are precomputed A-bucketed on device (needs concrete arrays — the
-    bucketing gathers run outside jit), then the scan runs fused in
-    N-CHUNKS with carries, so only the COMPACT [B, N, P*P] E/posterior
-    tensors are resident at full length (the lane-padded [chunk, P, P,
-    128] working set is bounded by the chunk picker) — genome-scale N
-    at production batch sizes (B=2) stays on the kernel."""
-    if os.environ.get("PANGENIE_TPU_NO_PALLAS"):
+    if not backend.is_accelerator():
         return False
-    if isinstance(columns.nr_local, jax.core.Tracer):
-        return False  # host-side bucketing needs concrete column data
-    if columns.lp.dtype != jnp.float32:
-        return False
-    B, N, P = columns.alleles.shape
-    if N == 0 or P > _PALLAS_MAX_PATHS:
-        return False
-    lb = (max(B, 1) + 127) // 128 * 128
-    # three [N, P, P, LB] HBM tensors live at once (E, alphas, posts).
-    # An N-chunked core with alpha/beta carries exists
-    # (pallas_fb._fb_pallas_e_core, exactness-tested) but does NOT yet
-    # widen this check: the kernels put B on lanes, so at production
-    # batch sizes (B=2..32) the chunked kernel either loses to the XLA
-    # scan on padded-lane compute (measured B=2: 63k vs 302k columns/s)
-    # or trips XLA's B-minor relayout padding. The round-6 fix is a
-    # (P, P)-lane kernel layout; see docs/BENCHMARKS.md.
-    if 3 * N * P * P * lb * 4 > _hbm_budget():
-        return False
-    return _is_tpu()
+    budget = _MEMORY_SHARE * backend.device_bytes_free()
+    return _kernel_bytes(B, N, P, A) <= budget
 
 
 # which implementation the most recent forward_backward_batch call
-# chose: "pallas_fused" | "pallas_generic" | "xla_scan". Production
-# logs it per phase so a silently lost fast path is visible
-# (VERDICT r02 weak #7); the bench reports it in its artifact line.
+# chose: "pallas_triton" | "xla_scan". Production logs it per phase so a
+# silently lost fast path is visible; chip_smoke.py prints it.
 last_dispatch: str = "none"
+# path counts already warned about (see _warn_if_paths_block_kernel)
 _logged: set = set()
-
-
-def _record(choice: str, shape) -> None:
-    global last_dispatch
-    last_dispatch = choice
-    key = (choice, tuple(shape))
-    if key not in _logged:
-        _logged.add(key)
-        if os.environ.get("PANGENIE_TPU_LOG_DISPATCH"):
-            import sys
-
-            print(
-                f"  [hmm dispatch] {choice} for [B,N,P]={tuple(shape)}",
-                file=sys.stderr,
-            )
 
 
 def forward_backward_batch(columns: ColumnArrays):
@@ -138,34 +73,29 @@ def forward_backward_batch(columns: ColumnArrays):
       (posteriors [B, N, A, A], log_correction [B, N]) — see
       :func:`forward_backward`.
     """
-    if use_pallas(columns):
-        from .pallas_fb import forward_backward_batch_pallas
+    import jax
 
-        _record("pallas_fused", columns.alleles.shape)
-        return forward_backward_batch_pallas(columns)
-    if use_pallas_generic(columns):
-        from .pallas_fb import forward_backward_batch_pallas_e
+    global last_dispatch
+    if use_kernel(columns):
+        from . import pallas_fb
 
-        _record("pallas_generic", columns.alleles.shape)
-        return forward_backward_batch_pallas_e(columns)
+        last_dispatch = "pallas_triton"
+        return pallas_fb.forward_backward_batch_pallas(columns)
     _warn_if_paths_block_kernel(columns)
-    _record("xla_scan", columns.alleles.shape)
+    last_dispatch = "xla_scan"
     return jax.vmap(forward_backward)(columns)
 
 
 def _warn_if_paths_block_kernel(columns: ColumnArrays) -> None:
-    """A path count just above the kernel cap silently costs ~10x (the
-    XLA scan): say so loudly ONCE per shape. P > 96 is a hard Mosaic
-    VMEM limit — the [S=8, P, P, 128] alpha block no longer compiles
-    (probed on v5e: P=104 fails) — so the fix is a smaller -a subset
-    or sampling, not a bigger cap."""
-    try:
-        B, N, P = columns.alleles.shape
-    except Exception:
+    """A float32 batch on an accelerator that only its path count keeps
+    off the kernel runs the slower XLA scan: say so once per P. The fix
+    is haplotype sampling or a path subset (-a), not a bigger cap."""
+    B, N, P = columns.alleles.shape
+    if P <= KERNEL_MAX_PATHS or columns.lp.dtype != jnp.float32:
         return
-    if not (_PALLAS_MAX_PATHS < P <= 2 * _PALLAS_MAX_PATHS):
+    if columns.incidence.shape[3] > KERNEL_MAX_ALLELES:
         return
-    if not _is_tpu():
+    if not backend.is_accelerator():
         return
     key = ("warn_paths", P)
     if key in _logged:
@@ -174,9 +104,9 @@ def _warn_if_paths_block_kernel(columns: ColumnArrays) -> None:
     import sys
 
     print(
-        f"  WARNING: {P} paths exceeds the fused HMM kernel's cap of "
-        f"{_PALLAS_MAX_PATHS}; falling back to the ~10x slower XLA "
-        "scan. Use haplotype sampling or a path subset (-a) of "
-        f"<= {_PALLAS_MAX_PATHS} paths to stay on the fast path.",
+        f"  WARNING: {P} paths exceeds the HMM kernel's cap of "
+        f"{KERNEL_MAX_PATHS}; running the slower XLA scan. Use haplotype "
+        f"sampling or a path subset (-a) of <= {KERNEL_MAX_PATHS} paths "
+        "to stay on the kernel.",
         file=sys.stderr,
     )

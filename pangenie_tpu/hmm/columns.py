@@ -273,7 +273,8 @@ def densify_records(
     host wall (the reference does the equivalent work inside its C++
     thread pool, src/commands.cpp:76-152). ``dtype`` is the HMM device
     dtype: the log-probability grid is built directly in it (float32 on
-    TPU halves the densify bytes and the host->device transfer).
+    an accelerator halves the densify bytes and the host->device
+    transfer).
     """
     if not records:
         raise RuntimeError("densify_records: no variant records.")

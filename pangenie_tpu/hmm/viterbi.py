@@ -18,7 +18,7 @@ tie-exactness regression tests.
 Backtrace pointers for all columns are stored ([N, S] int32) and the
 path is recovered with a reverse pointer-chase scan; the reference's
 sqrt(N)-checkpoint recompute (src/hmm.cpp:119-129, 152-158) is a
-host-memory trick TPU HBM does not need at phasing scale.
+host-memory trick device memory does not need at phasing scale.
 """
 
 from __future__ import annotations
@@ -75,8 +75,9 @@ def _top2_last(x, axis: int):
     with LAST argmax after excluding index a1 (so m2/a2 answer "max
     over the slice minus one given index" queries exactly, including
     under ties). Gather/flip-free: last-argmax is the max of the iota
-    where the value equals the max — reduces only (TPU gathers and
-    flip copies made this the scan's hot spot)."""
+    where the value equals the max — reduces only (gathers and flip
+    copies made this the scan's hot spot on the device it was first
+    written for)."""
     n = x.shape[axis]
     neg_inf = jnp.array(-jnp.inf, x.dtype)
     idx = jnp.expand_dims(
@@ -148,7 +149,7 @@ def _prev_best_factored(lv_prev, lt, P: int):
     # when that row's best column sits AT p2 (ex) else ra1[q1].
     # j2_row is one of {gA1[p2], gA2[p2]}, so the [P, P] gather
     # collapses to four [P]-sized gathers + selects (a [P, P] gather
-    # per scan step dominated the replay on TPU)
+    # per scan step would dominate the replay)
     r1g1, r2g1 = ra1[gA1], ra2[gA1]                           # [P]
     r1g2, r2g2 = ra1[gA2], ra2[gA2]
     ra1_at = jnp.where(hit, r1g2[None, :], r1g1[None, :])     # [P, P]

@@ -7,10 +7,10 @@ k-mers plus a parallel count array:
 
 - build  = extract + canonicalize + sort + run-length-encode
 - lookup = binary search (vectorized searchsorted)
-- merge  = merge-sorted + segment-sum (device-friendly; across TPU
+- merge  = merge-sorted + segment-sum (device-friendly; across
   devices this becomes an all-gather + local merge)
 
-This shape maps directly onto TPU primitives (``jax.lax.sort``,
+This shape maps directly onto device primitives (``jax.lax.sort``,
 ``searchsorted``) — the device engine in ``device_counter.py`` uses the
 identical layout so host and device tables are interchangeable and can
 validate each other exactly.

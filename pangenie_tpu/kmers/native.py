@@ -1,25 +1,67 @@
 """ctypes bindings for the native k-mer engine (csrc/kmercount.cpp).
 
-The shared library is compiled on first use with g++ -O3 and cached
-next to the source; all entry points fall back to the numpy
-implementations in mer.py when no compiler is available, so the
-package works (slower) without a native toolchain.
+The shared library is built from the committed source at first use,
+with g++ -O3 -march=native, into csrc/build/ under a name keyed by a
+hash of the source, the compile command and this host's CPU flags — a
+checkout never loads a library built from other source or for another
+CPU. A failed build is reported on stderr and the entry points fall
+back to the numpy implementations in mer.py (slower).
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
 import subprocess
+import sys
 import threading
 from typing import List, Optional, Tuple
 
 import numpy as np
 
-_CSRC = os.path.join(os.path.dirname(__file__), "..", "..", "csrc")
+_CSRC = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..", "csrc"))
+_BUILD = os.path.join(_CSRC, "build")
+_CXX = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_FAILED = False
+
+
+def _cpu_flags() -> bytes:
+    try:
+        with open("/proc/cpuinfo", "rb") as fh:
+            for line in fh:
+                if line.startswith(b"flags"):
+                    return line
+    except OSError:
+        pass
+    return b""
+
+
+def library_path(src: str) -> str:
+    """Where the library built from ``src`` on this host lives."""
+    h = hashlib.sha256()
+    with open(src, "rb") as fh:
+        h.update(fh.read())
+    h.update(" ".join(_CXX).encode())
+    h.update(_cpu_flags())
+    return os.path.join(_BUILD, f"libkmercount-{h.hexdigest()[:16]}.so")
+
+
+def _build(src: str, so: str) -> None:
+    """Compile ``src`` to ``so``; one process builds, the others wait."""
+    os.makedirs(_BUILD, exist_ok=True)
+    with open(os.path.join(_BUILD, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(so):
+            return
+        tmp = f"{so}.{os.getpid()}.tmp"
+        subprocess.run(_CXX + [src, "-o", tmp], check=True,
+                       capture_output=True, text=True)
+        os.replace(tmp, so)
 
 
 def _build_and_load() -> Optional[ctypes.CDLL]:
@@ -27,21 +69,18 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
     with _LOCK:
         if _LIB is not None or _LIB_FAILED:
             return _LIB
-        src = os.path.abspath(os.path.join(_CSRC, "kmercount.cpp"))
-        if not os.path.exists(src):
-            _LIB_FAILED = True
-            return None
-        so = os.path.join(os.path.dirname(src), "libkmercount.so")
+        src = os.path.join(_CSRC, "kmercount.cpp")
         try:
-            if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
-                subprocess.run(
-                    ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                     "-std=c++17", src, "-o", so],
-                    check=True, capture_output=True,
-                )
+            so = library_path(src)
+            if not os.path.exists(so):
+                _build(src, so)
             lib = ctypes.CDLL(so)
-        except (OSError, subprocess.CalledProcessError):
+        except (OSError, subprocess.CalledProcessError) as e:
             _LIB_FAILED = True
+            detail = getattr(e, "stderr", "") or e
+            print(f"WARNING: building the native k-mer engine from {src} "
+                  f"failed; k-mer counting falls back to numpy (slow).\n"
+                  f"{detail}", file=sys.stderr)
             return None
 
         u64p = ctypes.POINTER(ctypes.c_uint64)

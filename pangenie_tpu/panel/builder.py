@@ -6,7 +6,7 @@ k-1 bp, merges each cluster into a bubble, and derives the k-mer
 counting corpus (reference unitigs between bubbles plus every allele
 sequence with flanks).
 
-TPU-first note: this stays host-side by design — parsing and graph
+Device note: this stays host-side by design — parsing and graph
 topology are irregular, pointer-ish work; the output of this layer is
 what gets densified into device tensors downstream.
 """

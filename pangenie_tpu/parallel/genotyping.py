@@ -6,12 +6,12 @@ to common (N columns, P paths, K kmers, A alleles). Per variant the raw
 (unnormalized) allele-pair likelihoods of all subsets are SUMMED before
 the final normalization (reference src/commands.cpp:155-185, 980-988);
 under a (subset, batch) mesh that merge is a ``psum`` over the subset
-axis riding ICI, replacing the reference's result mutex.
+axis, replacing the reference's result mutex.
 
 Layout:
   inputs  ColumnArrays with leading dims [S, B, ...] sharded
           P('subset', 'batch') — every device holds S/s_mesh × B/b_mesh
-          HMM problem instances in HBM,
+          HMM problem instances in its memory,
   compute vmapped forward-backward scans (per-device batch),
   output  [S?, B, N, A, A] posteriors; combined over 'subset' via psum,
           replicated on the subset axis, sharded over 'batch'.
@@ -19,6 +19,7 @@ Layout:
 
 from __future__ import annotations
 
+import sys
 from functools import partial
 
 import jax
@@ -31,8 +32,8 @@ from ..hmm.forward_backward import ColumnArrays
 
 
 def _fb_batch(columns: ColumnArrays):
-    """Batched forward_backward over one leading batch dim (fused
-    Pallas TPU kernel when eligible, vmapped XLA scan otherwise)."""
+    """Batched forward_backward over one leading batch dim (the GPU
+    kernel when eligible, vmapped XLA scan otherwise)."""
     return forward_backward_batch(columns)
 
 
@@ -117,7 +118,7 @@ def sharded_viterbi(mesh: Mesh, columns: ColumnArrays, uniform: bool = False):
 
 def run_grid_local_sharded(members_cols, run_g: bool, run_p: bool,
                            uniform: bool, n_devices: int):
-    """Execute a stacked [B, ...] HMM grid across the local chips.
+    """Execute a stacked [B, ...] HMM grid across the local devices.
 
     The production analogue of the reference's thread pool over the
     (chromosome x subset) grid (src/commands.cpp:955-978): work items
@@ -151,6 +152,8 @@ def run_grid_local_sharded(members_cols, run_g: bool, run_p: bool,
         np.array(jax.devices()[:n_use]).reshape(1, n_use),
         ("subset", "batch"),
     )
+    print(f"  HMM grid of {B} items sharded over {n_use} devices",
+          file=sys.stderr)
     cols2 = shard_columns(mesh, jax.tree.map(lambda x: x[None], stacked))
     posts = corr = states = None
     if run_g:

@@ -11,8 +11,10 @@ from jax.sharding import Mesh
 
 def _factor_2d(n: int) -> Tuple[int, int]:
     """Factor n into (subset, batch) with subset as small as possible
-    while > 1 when n allows — subset-parallel traffic is a psum and
-    benefits from staying on the shortest ICI ring."""
+    while > 1 when n allows. The shape follows the algorithm, not the
+    wiring (the GPUs of a host reach each other all to all): the only
+    cross-device traffic is the psum over 'subset', so fewer subset
+    devices means smaller reductions."""
     if n <= 1:
         return (1, n)
     for s in (2, 3):

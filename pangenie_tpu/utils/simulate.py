@@ -103,13 +103,12 @@ def simulate_panel(
 
 def _random_genotypes(rng, nr_alleles, nr_samples):
     freqs = rng.dirichlet(np.ones(nr_alleles) * 0.8)
-    genotypes = [
-        (
-            int(rng.choice(nr_alleles, p=freqs)),
-            int(rng.choice(nr_alleles, p=freqs)),
-        )
-        for _ in range(nr_samples)
-    ]
+    # rng.choice(nr_alleles, p=freqs) once per haplotype, vectorized: the
+    # same cdf and the same uniform draws, so the same genotypes
+    cdf = freqs.cumsum()
+    cdf /= cdf[-1]
+    draws = cdf.searchsorted(rng.random(2 * nr_samples), side="right")
+    genotypes = [(int(a), int(b)) for a, b in draws.reshape(nr_samples, 2)]
     # ensure at least one non-ref haplotype so the record survives
     if all(g == (0, 0) for g in genotypes):
         genotypes[0] = (1, genotypes[0][1])

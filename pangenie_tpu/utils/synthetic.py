@@ -25,12 +25,17 @@ def synthetic_columns(
     batch_dims: Tuple[int, ...] = (),
     seed: int = 0,
     dtype=np.float64,
+    diploid: bool = False,
 ) -> ColumnArrays:
     """Build ColumnArrays of shape [*batch_dims, N, ...].
 
-    Alleles are drawn uniformly per (column, path); kmer counts are
-    Poisson at cn=1 coverage; every column gets K valid kmers spread
-    round-robin over alleles.
+    Alleles are drawn uniformly per (column, path); every column gets K
+    valid kmers spread round-robin over alleles. Kmer counts are
+    Poisson at cn=1 coverage — or, with ``diploid``, at the copy number
+    of the kmer's allele in a genotype drawn per column from two of the
+    column's paths, as a real sample's reads would give. (At A > 2 the
+    cn=1 counts fit no genotype, so every column's likelihood is tiny:
+    float32 underflows where float64 does not.)
     """
     rng = np.random.default_rng(seed)
     shape = tuple(batch_dims)
@@ -47,7 +52,14 @@ def synthetic_columns(
     incidence = np.zeros(shape + (N, K, A), dtype=bool)
     incidence[..., np.arange(K), kmer_alleles] = True
     kmer_mask = np.ones(shape + (N, K), dtype=bool)
-    counts = rng.poisson(coverage / 2.0, size=shape + (N, K)).astype(np.int64)
+    if diploid:
+        pick = rng.integers(0, P, size=shape + (N, 2))
+        gt = np.take_along_axis(alleles, pick, axis=-1)        # [..., N, 2]
+        copies = (gt[..., None, :] == kmer_alleles[:, None]).sum(-1)
+        counts = rng.poisson(coverage / 2.0 * copies).astype(np.int64)
+    else:
+        counts = rng.poisson(coverage / 2.0, size=shape + (N, K)).astype(
+            np.int64)
     counts = np.minimum(counts, 2 * coverage - 1)
 
     # probability lookup: all in-table by construction

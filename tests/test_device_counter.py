@@ -252,17 +252,17 @@ def test_count_file_primed_device_matches_host(tmp_path):
 def test_hmm_dtype_env_and_platform(monkeypatch):
     import jax.numpy as jnp
 
-    from pangenie_tpu import commands
+    from pangenie_tpu import backend, commands
 
     monkeypatch.setenv("PANGENIE_TPU_DTYPE", "float32")
-    assert commands._hmm_dtype() == jnp.float32
+    assert backend.hmm_dtype() == jnp.float32
     monkeypatch.setenv("PANGENIE_TPU_DTYPE", "f64")
-    assert commands._hmm_dtype() == jnp.float64
+    assert backend.hmm_dtype() == jnp.float64
     monkeypatch.delenv("PANGENIE_TPU_DTYPE")
     # CPU test backend -> verification default f64
-    assert commands._hmm_dtype() == jnp.float64
-    monkeypatch.setattr(commands, "_default_platform", lambda: "tpu")
-    assert commands._hmm_dtype() == jnp.float32
+    assert backend.hmm_dtype() == jnp.float64
+    monkeypatch.setattr(backend, "platform", lambda: "gpu")
+    assert backend.hmm_dtype() == jnp.float32
     # counter routing honors the env override on any backend
     monkeypatch.setenv("PANGENIE_TPU_COUNTER", "host")
     assert not commands._use_device_counter()
@@ -336,7 +336,7 @@ def test_prime_from_corpus_builds_device_table(tmp_path, monkeypatch):
 
 def test_ultralong_read_exceeding_flush_buffer(tmp_path):
     """A single read whose window count exceeds the flush buffer must
-    count correctly (ADVICE r03: capacity growth handles it)."""
+    count correctly (capacity growth handles it)."""
     import numpy as np
 
     from pangenie_tpu.kmers.counter import ExactKmerCounter

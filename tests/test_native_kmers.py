@@ -68,3 +68,18 @@ def test_counter_identical_with_and_without_native(monkeypatch):
     slow = ExactKmerCounter.count_sequences_primed(reads, corpus, 31)
     assert np.array_equal(fast.keys, slow.keys)
     assert np.array_equal(fast.counts, slow.counts)
+
+
+def test_library_is_built_from_source_keyed_by_hash(tmp_path):
+    """The library lives in csrc/build under a name keyed by the
+    source: other source (or another CPU) never loads a stale build."""
+    import os
+
+    src = os.path.join(native._CSRC, "kmercount.cpp")
+    so = native.library_path(src)
+    assert os.path.dirname(so) == native._BUILD
+    assert os.path.exists(so)
+    changed = tmp_path / "kmercount.cpp"
+    changed.write_bytes(open(src, "rb").read() + b"\n// edited\n")
+    assert native.library_path(str(changed)) != so
+    assert native.library_path(src) == so

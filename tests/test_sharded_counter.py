@@ -80,6 +80,22 @@ def test_sharded_matches_host(with_ns):
     np.testing.assert_array_equal(got, want)
 
 
+def test_batch_larger_than_buffer_is_ingested_in_parts():
+    """A batch with more windows than the whole exchange buffer (a
+    small graph table sizes a small buffer) is split, not refused."""
+    k = 31
+    genome, keys = _genome_and_keys(k, 50_000, seed=11)
+    reads = _reads(genome, 512, 150, seed=12)
+    want = _host_counts(k, keys, reads)
+    counter = ShardedPrimedDeviceCounter(
+        _mesh(), k, keys, buffer_capacity=1 << 14
+    )
+    # one batch: 512 * 120 windows * slack 3 >> 2^14 buffer slots
+    counter.update_batch(reads)
+    _, got = counter.to_host_arrays()
+    np.testing.assert_array_equal(got, want)
+
+
 def test_stream_driver_chunks_variable_reads():
     """count_stream_sharded re-chunks variable-length reads with k-1
     separators: every window exactly once, none across reads."""
